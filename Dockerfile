@@ -1,11 +1,11 @@
 # Serving image for the tpu2048 web service (all 7 UI modes).
-# TPU-native counterpart of the reference's python:3.11-slim Dash
-# image (/root/reference/Dockerfile:1-14): same capability — a
+# Counterpart of the reference's python:3.11-slim Dash image
+# (/root/reference/Dockerfile:1-14): same capability — a
 # self-contained container exposing the web app — but running the
 # stdlib-HTTP service over the JAX engine instead of Flask/Dash.
 #
-# CPU image by default; on a TPU VM swap the base for a jax[tpu]
-# install (see scripts/launch_tpu_vm.sh).
+# CPU image by default; for an NVIDIA GPU install "jax[cuda12]" instead
+# of "jax" and run the container with the GPU visible.
 
 FROM python:3.12-slim
 

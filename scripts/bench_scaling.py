@@ -89,14 +89,9 @@ def main():
             "the replicated TD table delta "
             f"({table_mb:.1f} MB/step for n=4), which on shared-core "
             "virtual CPU devices serializes into host memcpys and "
-            "swamps the useful work.  On a real TPU mesh the same "
-            "reduce rides ICI (tens of GB/s per link) concurrently "
-            "with compute: at the flagship 8192-env batch one step is "
-            "~8 ms of device work, so a ~0.3 ms ICI all-reduce is "
-            "a few percent — the basis of the near-linear multi-chip "
-            "expectation (validated functionally by the sharded "
-            "bitwise-equivalence test and the 2-process jax.distributed "
-            "test; no multi-chip hardware is reachable here)."
+            "swamps the useful work.  On real cards the same reduce "
+            "runs over the interconnect (NVLink) beside compute; "
+            "chip_smoke.py --four measures it on four GPUs."
         ),
     }))
 

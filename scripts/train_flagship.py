@@ -4,7 +4,7 @@ Reference best-agent configuration: n=4/5 feature set (17 four-tuples
 + 4 five-cell crosses), 100k episodes, alpha 0.25 / decay 0.75 every
 10k episodes, reaching 84% 2048-rate / 47% 4096-rate / ~45k average
 score after ~3 days on 1 CPU core (/root/reference/README.md:12,72).
-Here: the same episode budget on one TPU chip with lockstep envs, and
+Here: the same episode budget on one accelerator with lockstep envs, and
 knobs to compare batched-TD variants (sym_mode, update_mode, env
 count, schedule).
 """
@@ -16,6 +16,7 @@ import sys
 sys.path.insert(0, ".")
 faulthandler.enable()
 
+from tpu2048.compile_cache import setup_compile_cache
 from tpu2048.config import AgentConfig, TrainConfig
 from tpu2048.obs.logging import Logger
 from tpu2048.store.artifacts import open_store
@@ -41,11 +42,12 @@ def main():
     p.add_argument("--update-mode", default="mean", choices=["mean", "sum"])
     p.add_argument("--optimizer", default="sgd", choices=["sgd", "tc"])
     p.add_argument("--table-ops", default="gather",
-                   choices=["gather", "onehot", "pallas"])
+                   choices=["gather", "onehot"])
     p.add_argument("--steps-per-call", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     args = p.parse_args()
+    setup_compile_cache()
 
     acfg = AgentConfig(
         n=args.n, alpha=args.alpha, decay=args.decay,

@@ -138,7 +138,7 @@ def test_evaluate_matches_manual_sum(rng):
 
 
 def test_f6_indices_exact_and_not_bf16_safe(rng):
-    """TPU default matmul precision rounds operands toward bfloat16;
+    """A reduced default matmul precision rounds operands (bfloat16);
     the base-14 coefficients of the 6-tuples (14^3=2744, 14^5=537824)
     are NOT bf16-representable, so ``feature_indices`` must pin
     ``Precision.HIGHEST``.  (a) demonstrate the hazard is real;

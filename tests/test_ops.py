@@ -1,4 +1,4 @@
-"""Correctness of the MXU one-hot table ops against plain gathers.
+"""Correctness of the one-hot matmul table ops against plain gathers.
 
 The one-hot matmul path must be bit-exact (one-hots are 0/1 and the
 matmuls run in full precision), so these compare exactly, not to a
@@ -12,7 +12,6 @@ import pytest
 
 from tpu2048.features import ntuple
 from tpu2048.ops import onehot
-from tpu2048.ops import pallas_kernels as pk
 
 
 def _random_boards(key, n):
@@ -81,142 +80,49 @@ def test_onehot_update_matches_scatter(mean):
     np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("g,h,l", [(17, 256, 256), (3, 64, 64)])
-@pytest.mark.parametrize("precision", ["bf16x2", "f32"])
-def test_pallas_eval_class_interpret(g, h, l, precision):
-    key = jax.random.PRNGKey(0)
-    kt, kh, kl = jax.random.split(key, 3)
-    tables = jax.random.normal(kt, (g, h, l), jnp.float32)
-    b = 128
-    hi = jax.random.randint(kh, (b, g), 0, h, dtype=jnp.int32)
-    lo = jax.random.randint(kl, (b, g), 0, l, dtype=jnp.int32)
-    ref = tables[jnp.arange(g)[None, :], hi, lo].sum(axis=-1)
-    got = pk.eval_class(tables, hi, lo, 64, True, precision)
-    if precision == "f32":
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-6)
-    else:
-        # bf16x2 split: ~2^-18 relative error per looked-up value
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   atol=g * 4e-5 * float(np.abs(tables).max()))
-
-
-def test_pallas_grad_class_interpret():
-    g, h, l = 4, 64, 64
-    key = jax.random.PRNGKey(1)
-    kh, kl, kd, kv = jax.random.split(key, 4)
-    b = 128
-    hi = jax.random.randint(kh, (b, g), 0, h, dtype=jnp.int32)
-    lo = jax.random.randint(kl, (b, g), 0, l, dtype=jnp.int32)
-    dw = jax.random.normal(kd, (b,))
-    valid = jax.random.bernoulli(kv, 0.7, (b,))
-    dsum, hits = pk.grad_for(h, l)(hi, lo, dw, valid, 64, True)
-    # hits are exact (0/1 matmuls); dsum carries bf16x2 error
-
-    dwv = np.where(np.asarray(valid), np.asarray(dw), 0.0)
-    cv = np.asarray(valid).astype(np.float32)
-    ref_d = np.zeros((g, h, l), np.float32)
-    ref_h = np.zeros((g, h, l), np.float32)
-    for i in range(b):
-        for gi in range(g):
-            ref_d[gi, hi[i, gi], lo[i, gi]] += dwv[i]
-            ref_h[gi, hi[i, gi], lo[i, gi]] += cv[i]
-    np.testing.assert_allclose(np.asarray(dsum), ref_d, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(hits), ref_h, rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_eval_class_bf16_search_mode_interpret():
-    """The single-pass bf16 kernel (expectimax leaf mode,
-    ``table_ops="search"``) must equal the EXACT f32 sum of the
-    bf16-rounded table entries: one-hots are exact in bf16, so every
-    product term is the bf16 head of the weight, accumulated in f32."""
-    g, h, l = 17, 256, 256
-    key = jax.random.PRNGKey(7)
-    kt, kh, kl = jax.random.split(key, 3)
-    tables = jax.random.normal(kt, (g, h, l), jnp.float32)
-    b = 128
-    hi = jax.random.randint(kh, (b, g), 0, h, dtype=jnp.int32)
-    lo = jax.random.randint(kl, (b, g), 0, l, dtype=jnp.int32)
-    got = pk.eval_class(tables, hi, lo, 64, True, "bf16")
-    t_bf = tables.astype(jnp.bfloat16).astype(jnp.float32)
-    ref = t_bf[jnp.arange(g)[None, :], hi, lo].sum(axis=-1)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_search_mode_bf16_move_agreement_and_value_error():
-    """Statistical guarantees for the bf16 search-eval mode (round-3
-    verdict item 3): emulate the single-pass kernel by rounding the
-    matmul-class weights to bf16, then check (a) per-board value error
-    stays ~2^-8 relative, and (b) the greedy argmax agrees with the f32
-    evaluator on every board whose top-2 value gap exceeds the bf16
-    error bound — i.e. the mode can only flip near-ties, where both
-    moves are near-equally good."""
+@pytest.mark.parametrize("n", [4, 5, 6])
+def test_class_grads_match_numpy_scatter(n):
+    """The kept class-grads path sums (dw, valid) into each 16^k class
+    block exactly like a scatter-add: hits exact, dsum to f32 order."""
     from tpu2048.ops import dispatch
-    from tpu2048.ops.onehot import build_table_classes
 
-    ts = ntuple.get_tuple_set(5)
-    key = jax.random.PRNGKey(11)
-    kw, kb = jax.random.split(key)
-    # realistic magnitude spread: trained tables have O(1e3..1e5) values
-    weights = jax.random.normal(kw, (ts.total,)) * 3000.0
-    classes = build_table_classes(ts)
-    # bf16-round ONLY the matmul classes — exactly what "search" does
-    w_bf = np.asarray(weights).copy()
-    for c in classes.matmul:
-        size = c.g * c.h * c.l
-        blk = w_bf[c.start:c.start + size]
-        w_bf[c.start:c.start + size] = (
-            blk.astype(jnp.bfloat16).astype(np.float32))
-    w_bf = jnp.asarray(w_bf)
-
-    boards = _random_boards(kb, 512)
-    ev = dispatch.make_evaluator(ts, "gather")
-    v_f32 = np.asarray(ev(weights, boards))
-    v_bf = np.asarray(ev(w_bf, boards))
-    # (a) value error bound: num_feat bf16 roundings of O(|v|) terms
-    scale = np.abs(v_f32) + np.abs(np.asarray(weights)).max()
-    rel = np.abs(v_bf - v_f32) / scale
-    assert rel.max() < ts.num_feat * 2.0 ** -8, rel.max()
-
-    # (b) greedy argmax agreement outside the near-tie band
-    rng = np.random.default_rng(5)
-    vals_f = v_f32.reshape(128, 4)
-    vals_b = v_bf.reshape(128, 4)  # 4 candidate "afterstates" per board
-    top2 = np.sort(vals_f, axis=1)[:, -2:]
-    gap = top2[:, 1] - top2[:, 0]
-    band = 2 * ts.num_feat * 2.0 ** -8 * (
-        np.abs(vals_f).max(axis=1) + np.abs(np.asarray(weights)).max())
-    clear = gap > band
-    assert clear.mean() > 0.5  # the conservative band keeps most boards
-    agree = vals_f.argmax(axis=1) == vals_b.argmax(axis=1)
-    assert agree[clear].all(), "bf16 flipped a non-near-tie argmax"
-    assert rng is not None
+    ts = ntuple.get_tuple_set(n)
+    rng = np.random.default_rng(n)
+    b = 256
+    boards = rng.integers(0, 8, size=(b, 16)).astype(np.int8)
+    boards[rng.random((b, 16)) < 0.4] = 0  # colliding indices
+    idx = np.asarray(ntuple.feature_indices(ts, jnp.asarray(boards)))
+    dw = rng.normal(size=b).astype(np.float32)
+    valid = rng.random(b) < 0.8
+    classes, fn = dispatch.make_class_grads(ts, "auto")
+    got = jax.jit(fn)(jnp.asarray(idx), jnp.asarray(dw), jnp.asarray(valid))
+    assert len(got) == len(classes.matmul) > 0
+    for c, (dsum, hits) in zip(classes.matmul, got):
+        assert dsum.shape == hits.shape == (c.g, c.h, c.l)
+        loc = idx[:, c.feat0: c.feat0 + c.g] - c.start
+        want_d = np.zeros(c.g * c.h * c.l)
+        want_h = np.zeros(c.g * c.h * c.l)
+        np.add.at(want_d, loc, np.where(valid, dw, 0.0)[:, None])
+        np.add.at(want_h, loc, valid[:, None].astype(float))
+        np.testing.assert_array_equal(np.asarray(hits).reshape(-1), want_h)
+        np.testing.assert_allclose(np.asarray(dsum).reshape(-1), want_d,
+                                   rtol=1e-6, atol=1e-6)
 
 
-def test_split_bf16_survives_compiler_precision_rewrites():
-    """The two-pass kernels depend on _split_bf16 producing a REAL
-    residual.  The arithmetic form ``x - f32(bf16(x))`` was silently
-    simplified to zero by XLA under --xla_allow_excess_precision (set
-    for every TPU compile on this platform), collapsing bf16x2 to
-    single-pass bf16; the bitwise split must keep a nonzero residual
-    for non-bf16-exact inputs UNDER JIT on the active backend, and
-    head + resid must reconstruct x to ~2^-17."""
-    import jax
-    import jax.numpy as jnp
+_BUILDERS = {
+    "make_evaluator": lambda d, ts, m: d.make_evaluator(ts, m),
+    "make_train_evaluator": lambda d, ts, m: d.make_train_evaluator(ts, m),
+    "make_delta_accumulator":
+        lambda d, ts, m: d.make_delta_accumulator(ts, m),
+    "make_class_grads": lambda d, ts, m: d.make_class_grads(ts, m),
+    "make_updater": lambda d, ts, m: d.make_updater(ts, m, mean=True),
+}
 
-    from tpu2048.ops.pallas_kernels import _split_bf16
 
-    x = jnp.asarray(
-        np.random.default_rng(5).normal(0, 1000, 4096).astype(np.float32)
-    )
-    h, r = jax.jit(_split_bf16)(x)
-    h = np.asarray(h.astype(jnp.float32))
-    r = np.asarray(r.astype(jnp.float32))
-    xn = np.asarray(x)
-    exact_frac = (h == xn).mean()
-    assert exact_frac < 0.05, "head should round for ~all random f32"
-    assert (r != 0).mean() > 0.9, (
-        "residuals vanished: the split was compiler-folded again"
-    )
-    rel = np.abs(h + r - xn) / np.maximum(np.abs(xn), 1e-9)
-    assert rel.max() < 2 ** -16
+@pytest.mark.parametrize("mode", ["pallas", "search"])
+@pytest.mark.parametrize("builder", sorted(_BUILDERS))
+def test_removed_table_ops_raise(builder, mode):
+    from tpu2048.ops import dispatch
+
+    with pytest.raises(ValueError, match="valid modes"):
+        _BUILDERS[builder](dispatch, ntuple.get_tuple_set(2), mode)

@@ -322,29 +322,3 @@ def test_compacted_overflow_falls_back_to_full():
     base = np.asarray(value_fn(boards))
     np.testing.assert_allclose(out[1:], full[1:], rtol=1e-5)
     np.testing.assert_allclose(out[0], base[0], rtol=1e-6)
-
-
-def test_trial_search_table_ops_promotion_matches_gather():
-    """`trial` promotes table_ops "auto" -> "search" for depth>0 eval
-    (single-pass bf16 leaf eval on TPU; resolves to gather off-TPU).
-    The promotion plumbing must be value-identical to the explicit
-    gather evaluator on this backend, pinning the segment wiring that
-    round 3 shipped untested (VERDICT r3 weak #2)."""
-    import numpy as np
-
-    from tpu2048.config import SearchConfig
-    from tpu2048.features import ntuple
-    from tpu2048.ops.dispatch import resolve_mode
-    from tpu2048.train.trial import trial
-
-    assert resolve_mode("search") in ("search", "gather")
-    ts = ntuple.get_tuple_set(2)
-    w = ntuple.init_weights(ts, jax.random.PRNGKey(5))
-    common = dict(num=6, seed=9, step_cap=512, steps_per_call=32,
-                  search=SearchConfig(depth=2, width=3, since_empty=6))
-    res_auto = trial(ts, w, **common)  # promoted path
-    res_gather = trial(ts, w, table_ops="gather", **common)  # pinned gather
-    np.testing.assert_array_equal(res_auto.scores, res_gather.scores)
-    np.testing.assert_array_equal(res_auto.odometers, res_gather.odometers)
-    assert res_auto.scores.shape == (6,)
-    assert (res_auto.odometers > 0).all()

@@ -159,12 +159,27 @@ def test_model_axis_table_sharding():
     assert float(jnp.abs(out.weights).sum()) > 0.0
 
 
+def test_initialize_without_coordinator_returns_false(monkeypatch):
+    """Process count and id alone start nothing: without a coordinator
+    address ``initialize`` never calls jax.distributed."""
+    from tpu2048.parallel import distributed
+
+    def boom(**_kw):
+        raise AssertionError("jax.distributed.initialize called")
+
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setenv("NUM_PROCESSES", "4")
+    monkeypatch.setenv("PROCESS_ID", "1")
+    monkeypatch.setattr(jax.distributed, "initialize", boom)
+    assert distributed.initialize() is False
+    assert distributed.initialize(num_processes=2, process_id=0) is False
+
+
 def test_distributed_single_host_noop(monkeypatch):
-    """initialize() is a no-op off-pod with no explicit coordinator."""
+    """initialize() is a no-op with no coordinator."""
     from tpu2048.parallel import distributed
 
     monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
     assert distributed.initialize() is False
     m = distributed.global_mesh()
     assert m.devices.size == len(jax.devices())

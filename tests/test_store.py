@@ -83,6 +83,19 @@ def test_agent_checkpoint_roundtrip(store):
     assert meta2["train_history"] == [1, 2, 3]
 
 
+def test_agent_config_with_removed_field_loads():
+    """Configs stored while AgentConfig still had the actor's precision
+    field (values "bf16" / "bf16x2") load: unknown keys are dropped, the
+    rest is kept."""
+    from tpu2048.config import agent_config_from_dict, to_dict
+
+    removed = "_".join(("actor", "precision"))  # no live reference
+    old = {**to_dict(AgentConfig(n=6, alpha=0.5)), removed: "bf16"}
+    acfg = agent_config_from_dict(old)
+    assert acfg == AgentConfig(n=6, alpha=0.5)
+    assert not hasattr(acfg, removed)
+
+
 def test_load_missing_agent_raises(store):
     with pytest.raises(FileNotFoundError):
         ckpt.load_agent(store, "ghost")

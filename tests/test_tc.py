@@ -134,23 +134,15 @@ def ts_total(acfg):
     return ntuple.get_tuple_set(acfg.n).total
 
 
-@pytest.mark.parametrize("forced_pack", [3, 2])
-def test_packed_segment_matches_unpacked_steps(forced_pack, monkeypatch):
-    """The canonical+TC segment packs the optimizer state into a row
-    stack around its scan (td.pack_mode): K packed-scan steps must
-    reproduce K unpacked direct steps on every state leaf — the
-    packing is a memory-layout optimization, not a numerics change.
-    pack_mode selects 3 at n=5 sizes; the 2 layout (kept as the
-    measured-slower alternative, see pack_mode docstring) is forced
-    via monkeypatch so its numerics stay pinned too."""
+@pytest.mark.parametrize("optimizer", ["tc", "sgd"])
+def test_segment_matches_direct_steps(optimizer):
+    """The canonical segment (a scan of staged steps plus the
+    once-per-segment recorder merge) must reproduce K direct unstaged
+    steps on every learning leaf."""
     ts = ntuple.get_tuple_set(5)
-    acfg = AgentConfig(n=5, table_ops="gather")  # canonical + tc
+    acfg = AgentConfig(n=5, table_ops="gather", optimizer=optimizer)
     tcfg = TrainConfig(num_envs=32, steps_per_call=8, ring_size=128,
                        record_envs=4, max_record_steps=512)
-    if forced_pack == 2:
-        monkeypatch.setattr(td, "pack_mode", lambda *_a: 2)
-    else:
-        assert td.pack_mode(ts, acfg) == forced_pack
     st0 = td.init_td_state(ts, acfg, tcfg, jax.random.PRNGKey(3))
     seg = jax.jit(td.make_train_segment(ts, acfg, tcfg))
     stP = seg(st0)
@@ -166,34 +158,3 @@ def test_packed_segment_matches_unpacked_steps(forced_pack, monkeypatch):
         np.asarray(stP.opt_e), np.asarray(stU.opt_e), atol=1e-6)
     np.testing.assert_allclose(
         np.asarray(stP.opt_a), np.asarray(stU.opt_a), atol=1e-6)
-    assert stP.weights.shape == stU.weights.shape  # unpacked at boundary
-
-
-def test_bf16_actor_bootstrap_is_exact():
-    """actor_precision="bf16" must keep the TD bootstrap exact: the
-    best_val used for the update equals the full-precision evaluator's
-    value of the chosen afterstate.  On CPU both precisions resolve to
-    exact gathers, so the re-derivation path must agree EXACTLY with
-    the exact-actor path on every state leaf."""
-    ts = ntuple.get_tuple_set(5)
-    tcfg = TrainConfig(num_envs=32, steps_per_call=8, ring_size=128,
-                       record_envs=4, max_record_steps=512)
-    states = {}
-    for prec in ("bf16", "bf16x2"):
-        acfg = AgentConfig(n=5, table_ops="gather",
-                           actor_precision=prec)
-        st = td.init_td_state(ts, acfg, tcfg, jax.random.PRNGKey(7))
-        seg = jax.jit(td.make_train_segment(ts, acfg, tcfg))
-        states[prec] = seg(seg(st))
-    a, b = states["bf16"], states["bf16x2"]
-    np.testing.assert_array_equal(
-        np.asarray(a.env.codes), np.asarray(b.env.codes))
-    # f32 reassociation between the two compiled programs leaves
-    # ~1e-6-relative noise; a 2^-8-grade (bf16) bootstrap would be
-    # ~4 orders of magnitude larger and fails these bounds
-    np.testing.assert_allclose(
-        np.asarray(a.weights), np.asarray(b.weights),
-        rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(a.prev_value), np.asarray(b.prev_value),
-        rtol=1e-5, atol=1e-5)

@@ -1,12 +1,12 @@
 """On-device TD(0) n-tuple actor–learner.
 
 Capability parity with the reference ``QAgent`` (``/root/reference/
-game2048/r_learning.py:85-346``), re-designed for TPU: instead of one
-sequential game with per-move Python list updates, N environments step
-in lockstep under ``jit``; afterstate values are weight-table gathers,
-greedy action selection is a masked argmax over the 4 afterstates, and
-the TD update is a batched scatter-add over the feature indices of all
-8 D4-symmetric board images.
+game2048/r_learning.py:85-346``), re-designed for an accelerator:
+instead of one sequential game with per-move Python list updates, N
+environments step in lockstep under ``jit``; afterstate values are
+weight-table gathers, greedy action selection is a masked argmax over
+the 4 afterstates, and the TD update is a batched scatter-add over the
+feature indices of all 8 D4-symmetric board images.
 
 Semantics preserved from the reference ``episode`` loop
 (``r_learning.py:224-252``):
@@ -28,7 +28,7 @@ batch applies the updates of N in-flight games at once (mini-batch
 TD(0), index collisions summed).  Update numerics are pinned against
 scalar re-derivations in ``tests/test_td.py`` and against the explicit
 8-image scatter in ``tests/test_canonical.py``; learning-curve quality
-is documented in ``QUALITY.md`` (measured on-chip each round).
+is documented in ``QUALITY.md``.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ def make_select_greedy(ts: ntuple.TupleSet, eval_fn=None):
     """Build the batched greedy afterstate selector (ref
     ``_find_best_move`` / the argmax in ``episode``,
     ``r_learning.py:229-237``) over a pluggable table evaluator
-    (gather / one-hot MXU / Pallas — see tpu2048/ops/dispatch.py).
+    (gather / one-hot matmul — see tpu2048/ops/dispatch.py).
     """
     if eval_fn is None:
         def eval_fn(weights, flat_boards):
@@ -248,10 +248,8 @@ class RecStep(NamedTuple):
 
     One row per recorded env; the segment stacks these over its K scan
     steps and merges them into the big ``(R_env, S)`` log buffers ONCE
-    per segment (see ``_merge_staged_recorder``) — per-step scatters
-    into a 100+ MB buffer are latency-bound on TPU (~1.6 ms each for
-    8192 single-byte lanes), while the dense per-step stack plus one
-    (K*R)-element merge scatter runs ~20x faster for the same writes.
+    per segment (see ``_merge_staged_recorder``): one (K*R)-element
+    merge scatter instead of K small scatters into a 100+ MB buffer.
     """
 
     mv: jax.Array  # (R,) i8 chosen direction
@@ -263,48 +261,16 @@ class RecStep(NamedTuple):
     sb: jax.Array  # (R, 16) i8 completing episode's start board (0 if not done)
 
 
-PACK_LIMIT = 32_000_000  # entries; measured crossover for stacked ops
-
-
-def pack_mode(ts: ntuple.TupleSet, acfg: AgentConfig) -> int:
-    """Scan-carry packing for the canonical+TC optimizer state.
-
-    3: ``weights`` carries the (3, total) [w, E, A] row-stack — one
-       (3,·) gather feeds the TC rate and ONE stacked scatter updates
-       all three tables (measured 1.66 vs 2.98 ms at the n=5 defaults'
-       lane count; stacked ops WIN at tables <= PACK_LIMIT entries).
-    2: ``opt_e`` carries the (2, total) [E, A] stack, weights stay
-       flat.  Measured SLOWER than separate arrays at every size that
-       would use it (n=6: 18.9 vs 16.6 ms — above ~32M entries even
-       2-row stacked gathers/scatters pay more per lane than separate
-       passes, scripts/r5_fold_n6.txt), so ``pack_mode`` never selects
-       it; the path is kept under test as the measured alternative.
-    0: fields as declared (non-canonical / non-TC / direct step use,
-       and all tables past PACK_LIMIT).
-
-    Packing is applied ONLY around the jitted segment scan
-    (``make_train_segment``): the public TDState keeps flat fields, so
-    checkpoints, mesh shardings and tests are layout-agnostic.
-    """
-    if not (_is_canonical(acfg) and acfg.optimizer == "tc"):
-        return 0
-    return 3 if ts.total <= PACK_LIMIT else 0
-
-
 def make_train_step(
     ts: ntuple.TupleSet, acfg: AgentConfig, tcfg: TrainConfig,
-    staged: bool = False, packed: int = 0,
+    staged: bool = False,
 ):
     """Build the single batched TD(0) train step (pure, jit-friendly).
 
     With ``staged=True`` the step does NOT scatter into the big
     recorder log buffers or update the best-game snapshot; it returns
     ``(state, RecStep)`` and the caller (``make_train_segment``) merges
-    the stacked records once per segment.
-
-    ``packed`` (see ``pack_mode``) selects the scan-carry layout of
-    the canonical+TC optimizer state; the step then reads and writes
-    the packed arrays directly (no per-step stack/unstack copies)."""
+    the stacked records once per segment."""
 
     num_feat = ts.num_feat
     ring = tcfg.ring_size
@@ -339,31 +305,13 @@ def make_train_step(
         # Canonical-index learner (features/canonical.py): per-move D4
         # coupling of the big gather classes rides the INDICES (one
         # sparse gather/scatter at the orbit minimum), so the per-step
-        # cost is O(batch); only the small MXU classes still fold
+        # cost is O(batch); only the small 16^2..16^4 classes still fold
         # densely — class-local, a few MB instead of the whole table.
         from ..features.canonical import canonical_gather_indices
         from ..features.symmetry import symmetrize_class_sum
-        from ..ops import fold_kernel as fkn
 
-        # fused fold (TPU): gradient blocks are generated directly in
-        # the fold kernel's repacked digit order, the whole 3-round D4
-        # fold runs in ONE VMEM-resident kernel pass per tuple group
-        # (measured 0.29 vs 1.84 ms in-scan at the n=5 defaults,
-        # scripts/r5s2_probe_n5.txt), and the single repacked->standard
-        # conversion left is a streaming pass over the folded dbar/upd
-        # row.  Bitwise-identical to the streaming fold
-        # (tests/test_fold_kernel.py).
-        fused_fold = {}
-        if table_dispatch.resolve_mode(acfg.table_ops) in (
-            "pallas", "search",
-        ):
-            from ..ops.onehot import build_table_classes
-
-            for c in build_table_classes(ts).matmul:
-                if fkn.supports(ts, c):
-                    fused_fold[c.feat0] = fkn.pack_perm_for(ts, c)
         classes_c, class_grads = table_dispatch.make_class_grads(
-            ts, acfg.table_ops, repack=fused_fold or None
+            ts, acfg.table_ops
         )
     elif tc_mode or fold_step:
         accumulate = table_dispatch.make_delta_accumulator(
@@ -376,18 +324,9 @@ def make_train_step(
 
     # codes-path evaluator also returns the index tensors so the
     # chosen afterstate's features are SELECTED, not recomputed.
-    # actor_precision="bf16": the 4N selection pass runs the matmul
-    # classes single-pass bf16; the chosen afterstate's value is then
-    # re-derived exactly (bf16x2) from its indices at N rows, so the
-    # TD bootstrap stays exact-grade while selection pays half the
-    # MXU cost (the gather classes are exact f32 in either mode).
-    actor_bf16 = acfg.actor_precision == "bf16"
     train_ev = table_dispatch.make_train_evaluator(
-        ts, acfg.table_ops, canonical=canon_step,
-        precision="bf16" if actor_bf16 else None, split=True,
+        ts, acfg.table_ops, canonical=canon_step
     )
-    if actor_bf16:
-        mxu_exact = table_dispatch.make_mxu_eval_idx(ts, acfg.table_ops)
     codes_mode = acfg.engine_mode == "codes"
     if codes_mode:
         from ..engine import fast as engf
@@ -402,11 +341,6 @@ def make_train_step(
         n = score.shape[0]
         ar = jnp.arange(n)
 
-        # packed-layout read views (see pack_mode)
-        if packed == 3:
-            w_read = state.weights[0]  # row 0 of the (3, total) stack
-        else:
-            w_read = state.weights
 
         if codes_mode:
             # packed-codes move resolution: up/down come back in
@@ -422,18 +356,16 @@ def make_train_step(
                 [cells4[0], cells4[1][..., perm],
                  cells4[2], cells4[3][..., perm]]
             )
-            mxu4, gth4, idx4, cidx4, mult4 = train_ev(
-                w_read, cells4
-            )  # (4, N), (4, N), (4, N, F), (4, N, K)|None
-            vals = mxu4 + gth4
+            with jax.named_scope("actor_eval"):
+                vals, idx4, cidx4, mult4 = train_ev(
+                    state.weights, cells4
+                )  # (4, N), (4, N, F), (4, N, K)|None
             masked = jnp.where(legal, vals, -jnp.inf)
             best_dir = jnp.argmax(masked, axis=0).astype(jnp.int32)
 
             def _sel(x4):
-                # chosen-direction select as a 4-way masked merge:
-                # TPU lowers x4[best_dir, ar] as a batched gather,
-                # while the unrolled where-chain is a fused VPU sweep
-                # over the same bytes (measured faster in-scan)
+                # chosen-direction select as a 4-way masked merge: one
+                # fused elementwise sweep instead of a batched gather
                 out = x4[0]
                 for d in (1, 2, 3):
                     h = best_dir == d
@@ -447,22 +379,13 @@ def make_train_step(
             best_delta = _sel(delta4)
             done = ~legal.any(axis=0)
             chosen_cells = _sel(cells4)  # canonical (N, 16)
-            if actor_bf16:
-                # exact TD bootstrap: re-derive the chosen afterstate's
-                # matmul-class value at full precision from its indices
-                # (N rows); the gather part gth4 is exact already.  On
-                # done rows the value is unused (masked by ``done`` in
-                # both td_err and prev_value below).
-                best_val = (
-                    mxu_exact(w_read, _sel(idx4)) + _sel(gth4)
-                )
             chosen_codes = engf.canonicalize_chosen(
                 _sel(aftc), best_dir
             )
         else:
             boards = state.env.boards
             chosen, best_dir, best_val, best_delta, done = select(
-                w_read, boards
+                state.weights, boards
             )
             chosen_cells = chosen.reshape(n, 16)
 
@@ -486,57 +409,29 @@ def make_train_step(
             weights, opt_e, opt_a = (
                 state.weights, state.opt_e, state.opt_a
             )
-            # small MXU classes: per-class (dsum, hits) blocks + the
-            # class-local D4 fold, then the optimizer rule on the
+            # small 16^2..16^4 classes: per-class (dsum, hits) blocks +
+            # the class-local D4 fold, then the optimizer rule on the
             # block only (a few MB of traffic, never the full table)
-            blocks = class_grads(idx_flat, delta, state.prev_valid)
+            with jax.named_scope("class_grads"):
+                blocks = class_grads(idx_flat, delta, state.prev_valid)
             for c, (dsum_b, hits_b) in zip(classes_c.matmul, blocks):
                 size1 = c.h * c.l
-                fused = c.feat0 in fused_fold
-                pair = jnp.stack(
-                    [dsum_b.reshape(c.g, size1),
-                     hits_b.reshape(c.g, size1)]
-                )
-                if fused:
-                    # blocks arrived repacked (make_class_grads); the
-                    # fold stays in repacked coords, and only the ONE
-                    # derived row (dbar / upd) converts back below
-                    pair = fkn.fold_class_pair_repacked(ts, c, pair)
-                else:
-                    pair = symmetrize_class_sum(ts, c.feat0, c.g, pair)
+                with jax.named_scope("class_fold"):
+                    pair = symmetrize_class_sum(
+                        ts, c.feat0, c.g,
+                        jnp.stack([dsum_b.reshape(c.g, size1),
+                                   hits_b.reshape(c.g, size1)]),
+                    )
                 dsum_f = pair[0].reshape(c.g * size1)
                 hits_f = pair[1].reshape(c.g * size1)
                 nsz = c.g * size1
                 if tc_mode:
                     dbar = dsum_f / jnp.maximum(hits_f, 1.0)
-                    if fused:
-                        dbar = fkn.repack_rows(
-                            ts, c, dbar.reshape(c.g, size1),
-                            inverse=True,
-                        ).reshape(nsz)
-                    if packed == 3:
-                        blk = jax.lax.dynamic_slice(
-                            weights, (0, c.start), (3, nsz)
-                        )
-                        w_blk, e_blk, a_blk = blk[0], blk[1], blk[2]
-                    elif packed == 2:
-                        w_blk = jax.lax.dynamic_slice(
-                            weights, (c.start,), (nsz,)
-                        )
-                        blk2 = jax.lax.dynamic_slice(
-                            opt_e, (0, c.start), (2, nsz)
-                        )
-                        e_blk, a_blk = blk2[0], blk2[1]
-                    else:
-                        w_blk = jax.lax.dynamic_slice(
-                            weights, (c.start,), (nsz,)
-                        )
-                        e_blk = jax.lax.dynamic_slice(
-                            opt_e, (c.start,), (nsz,)
-                        )
-                        a_blk = jax.lax.dynamic_slice(
-                            opt_a, (c.start,), (nsz,)
-                        )
+                    w_blk = jax.lax.dynamic_slice(
+                        weights, (c.start,), (nsz,)
+                    )
+                    e_blk = jax.lax.dynamic_slice(opt_e, (c.start,), (nsz,))
+                    a_blk = jax.lax.dynamic_slice(opt_a, (c.start,), (nsz,))
                     lr_b = jnp.where(
                         a_blk > 0.0,
                         jnp.abs(e_blk) / jnp.maximum(a_blk, 1e-30),
@@ -545,37 +440,18 @@ def make_train_step(
                     w_new = w_blk + state.alpha * lr_b * dbar
                     e_new = e_blk + dbar
                     a_new = a_blk + jnp.abs(dbar)
-                    if packed == 3:
-                        weights = jax.lax.dynamic_update_slice(
-                            weights, jnp.stack([w_new, e_new, a_new]),
-                            (0, c.start),
-                        )
-                    elif packed == 2:
-                        weights = jax.lax.dynamic_update_slice(
-                            weights, w_new, (c.start,)
-                        )
-                        opt_e = jax.lax.dynamic_update_slice(
-                            opt_e, jnp.stack([e_new, a_new]),
-                            (0, c.start),
-                        )
-                    else:
-                        weights = jax.lax.dynamic_update_slice(
-                            weights, w_new, (c.start,)
-                        )
-                        opt_e = jax.lax.dynamic_update_slice(
-                            opt_e, e_new, (c.start,)
-                        )
-                        opt_a = jax.lax.dynamic_update_slice(
-                            opt_a, a_new, (c.start,)
-                        )
+                    weights = jax.lax.dynamic_update_slice(
+                        weights, w_new, (c.start,)
+                    )
+                    opt_e = jax.lax.dynamic_update_slice(
+                        opt_e, e_new, (c.start,)
+                    )
+                    opt_a = jax.lax.dynamic_update_slice(
+                        opt_a, a_new, (c.start,)
+                    )
                 else:
                     upd = (dsum_f / jnp.maximum(hits_f, 1.0)
                            if acfg.update_mode == "mean" else dsum_f)
-                    if fused:
-                        upd = fkn.repack_rows(
-                            ts, c, upd.reshape(c.g, size1),
-                            inverse=True,
-                        ).reshape(nsz)
                     w_blk = jax.lax.dynamic_slice(
                         weights, (c.start,), (nsz,)
                     )
@@ -591,65 +467,22 @@ def make_train_step(
             # orbits: a board's own 4 crosses often canonicalize to one
             # entry), so per-entry normalization must be exact to match
             # the validated fold/index collision-mean numerics.
-            # (A sort+prefix-sum dedup with unique-index scatters was
-            # tried in round 4 and measured 2x SLOWER in-scan than
-            # these colliding scatters — 4.78 vs 2.35 ms at the n=5
-            # defaults' lane count; see scripts/bench_canon_breakdown
-            # — so the colliding form stays.)
-            if state.prev_cidx.shape[1]:
-                cidx = state.prev_cidx
-                per = jnp.broadcast_to(delta[:, None], cidx.shape)
-                if acfg.update_mode == "sum":
-                    per = per * state.prev_cmult.astype(jnp.float32)
-                per = jnp.where(state.prev_valid[:, None], per, 0.0)
-                if acfg.update_mode == "mean":
-                    contrib = jnp.broadcast_to(
-                        state.prev_valid[:, None], cidx.shape
-                    ).astype(jnp.float32)
-                    hits_g = jnp.zeros(
-                        (ts.total,), jnp.float32
-                    ).at[cidx].add(contrib, mode="drop")
-                    per = per / jnp.maximum(hits_g[cidx], 1.0)
-                if tc_mode:
-                    if packed == 3:
-                        # weights IS the (3, total) [w, E, A] stack:
-                        # one (3,·) gather feeds the TC rate, one
-                        # stacked scatter applies all three updates —
-                        # no per-step stack/unstack copies (measured
-                        # 1.66 vs 2.98 ms at the n=5 defaults)
-                        g3 = weights[:, cidx]
-                        e_g, a_g = g3[1], g3[2]
-                        lr_g = jnp.where(
-                            a_g > 0.0,
-                            jnp.abs(e_g) / jnp.maximum(a_g, 1e-30),
-                            1.0,
-                        )
-                        upd = jnp.stack(
-                            [state.alpha * lr_g * per, per,
-                             jnp.abs(per)]
-                        )
-                        weights = weights.at[:, cidx].add(
-                            upd, mode="drop"
-                        )
-                    elif packed == 2:
-                        # big tables: the 3-row stack's strided lanes
-                        # are slower than separate ops, but the (2,·)
-                        # E/A stack still halves those two passes
-                        g2 = opt_e[:, cidx]
-                        e_g, a_g = g2[0], g2[1]
-                        lr_g = jnp.where(
-                            a_g > 0.0,
-                            jnp.abs(e_g) / jnp.maximum(a_g, 1e-30),
-                            1.0,
-                        )
-                        opt_e = opt_e.at[:, cidx].add(
-                            jnp.stack([per, jnp.abs(per)]),
-                            mode="drop",
-                        )
-                        weights = weights.at[cidx].add(
-                            state.alpha * lr_g * per, mode="drop"
-                        )
-                    else:
+            with jax.named_scope("sparse_update"):
+                if state.prev_cidx.shape[1]:
+                    cidx = state.prev_cidx
+                    per = jnp.broadcast_to(delta[:, None], cidx.shape)
+                    if acfg.update_mode == "sum":
+                        per = per * state.prev_cmult.astype(jnp.float32)
+                    per = jnp.where(state.prev_valid[:, None], per, 0.0)
+                    if acfg.update_mode == "mean":
+                        contrib = jnp.broadcast_to(
+                            state.prev_valid[:, None], cidx.shape
+                        ).astype(jnp.float32)
+                        hits_g = jnp.zeros(
+                            (ts.total,), jnp.float32
+                        ).at[cidx].add(contrib, mode="drop")
+                        per = per / jnp.maximum(hits_g[cidx], 1.0)
+                    if tc_mode:
                         e_g = opt_e[cidx]
                         a_g = opt_a[cidx]
                         lr_g = jnp.where(
@@ -657,29 +490,15 @@ def make_train_step(
                             jnp.abs(e_g) / jnp.maximum(a_g, 1e-30),
                             1.0,
                         )
-                        if ts.total <= PACK_LIMIT:
-                            # one stacked scatter updates all three
-                            # tables (the segment path reaches this as
-                            # packed=3 without even the stack copies)
-                            wea = jnp.stack([weights, opt_e, opt_a])
-                            upd = jnp.stack(
-                                [state.alpha * lr_g * per, per,
-                                 jnp.abs(per)]
-                            )
-                            wea = wea.at[:, cidx].add(upd, mode="drop")
-                            weights, opt_e, opt_a = (
-                                wea[0], wea[1], wea[2]
-                            )
-                        else:
-                            weights = weights.at[cidx].add(
-                                state.alpha * lr_g * per, mode="drop"
-                            )
-                            opt_e = opt_e.at[cidx].add(per, mode="drop")
-                            opt_a = opt_a.at[cidx].add(
-                                jnp.abs(per), mode="drop"
-                            )
-                else:
-                    weights = weights.at[cidx].add(per, mode="drop")
+                        weights = weights.at[cidx].add(
+                            state.alpha * lr_g * per, mode="drop"
+                        )
+                        opt_e = opt_e.at[cidx].add(per, mode="drop")
+                        opt_a = opt_a.at[cidx].add(
+                            jnp.abs(per), mode="drop"
+                        )
+                    else:
+                        weights = weights.at[cidx].add(per, mode="drop")
         elif tc_mode:
             # Temporal coherence (Jaskowski 2016): per-weight rate
             # |E|/A, self-annealing; alpha is a global meta-rate.
@@ -966,8 +785,7 @@ def _merge_staged_recorder(
     # the staged records, both pre-merge), while the end episode's row
     # — the one a later segment keeps extending — always lands intact.
     # When nothing completed (fdone = K), end_cnt = 0 and every write
-    # lands.  Lane cost: HALF the two-phase form this replaces
-    # (scripts/r5s2_probe_n5.txt).
+    # lands.
     end_cnt = jnp.where(ldone >= 0, K - 1 - ldone, 0)
     col = jnp.where(
         kk < fdone[None, :],
@@ -1065,34 +883,14 @@ def make_train_segment(
 
     The recorder is STAGED: steps emit per-env ``RecStep`` rows as scan
     outputs and the segment merges them into the big log buffers once
-    (``_merge_staged_recorder``) — ~20x cheaper than per-step scatters
-    into the 100+ MB logs when every env is recorded (the true
-    best-game-capture default).
-
-    The canonical+TC optimizer state is PACKED around the scan (see
-    ``pack_mode``): stacked once per segment, carried packed through
-    all K steps, unstacked once — the public TDState layout at the
-    jit boundary is unchanged.
+    (``_merge_staged_recorder``) instead of per-step scatters into the
+    100+ MB logs when every env is recorded (the true best-game-capture
+    default).
     """
-    packed = pack_mode(ts, acfg)
-    step = make_train_step(ts, acfg, tcfg, staged=True, packed=packed)
-    empty = jnp.zeros((0,), jnp.float32)
+    step = make_train_step(ts, acfg, tcfg, staged=True)
 
     def segment(state: TDState) -> TDState:
-        w0 = state.weights
         starts0 = state.recorder.starts
-        if packed == 3:
-            state = state._replace(
-                weights=jnp.stack(
-                    [state.weights, state.opt_e, state.opt_a]
-                ),
-                opt_e=empty, opt_a=empty,
-            )
-        elif packed == 2:
-            state = state._replace(
-                opt_e=jnp.stack([state.opt_e, state.opt_a]),
-                opt_a=empty,
-            )
 
         def body(s, _):
             return step(s)
@@ -1100,15 +898,6 @@ def make_train_segment(
         out, recs = jax.lax.scan(
             body, state, None, length=tcfg.steps_per_call
         )
-        if packed == 3:
-            out = out._replace(
-                weights=out.weights[0], opt_e=out.weights[1],
-                opt_a=out.weights[2],
-            )
-        elif packed == 2:
-            out = out._replace(
-                opt_e=out.opt_e[0], opt_a=out.opt_e[1]
-            )
         out = out._replace(
             recorder=_merge_staged_recorder(
                 out.recorder, starts0, recs, tcfg.max_record_steps

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..compile_cache import setup_compile_cache
 from ..config import SearchConfig
 from ..engine.parity import ParityGame
 from ..features import ntuple
@@ -196,6 +197,7 @@ def main(argv=None) -> None:
     p.add_argument("--option", type=int, default=None,
                    help="0 play, 1 replay, 2 trial+replay, 3 watch")
     args = p.parse_args(argv)
+    setup_compile_cache()
     store = open_store(args.backend, args.store)
     print("option 0 = play yourself")
     print("option 1 = replay a game from storage")

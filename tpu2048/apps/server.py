@@ -21,6 +21,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
+from ..compile_cache import setup_compile_cache
 from ..config import TrainConfig
 from ..store.artifacts import open_store
 from .service import AppService
@@ -270,6 +271,7 @@ def main(argv=None):
     p.add_argument("--num-envs", type=int, default=1024,
                    help="lockstep envs per training job")
     args = p.parse_args(argv)
+    setup_compile_cache()
     store = open_store(args.backend, args.store)
     service = AppService(store,
                          default_tcfg=TrainConfig(num_envs=args.num_envs))

@@ -139,7 +139,7 @@ class AppService:
             except OSError:
                 pass
         out.setdefault("guide", (
-            "# tpu2048\n\nTPU-native 2048 RL: train, test, watch and "
+            "# tpu2048\n\n2048 RL on JAX: train, test, watch and "
             "replay n-tuple TD(0) agents; play yourself; manage stored "
             "artifacts in Admin."
         ))
@@ -413,7 +413,7 @@ class AppService:
 
         ``backend`` selects the play engine: "native" (C++ host
         engine), "python" (reference-parity sequential engine),
-        "device" (the TPU/XLA batched expectimax path — the same code
+        "device" (the XLA batched expectimax path — the same code
         the eval driver runs, streamed one game at a time), or "auto"
         (native if built, else python).
         """
@@ -493,7 +493,7 @@ class AppService:
             ws.done = True
 
         def body_device(job: Job):
-            # TPU/XLA path: the SAME batched (compacted) expectimax
+            # device path: the SAME batched (compacted) expectimax
             # the eval driver uses, run on a single game with one
             # device step per move; frames are emitted move-by-move
             # with the reference's (pre-move board, chosen move)

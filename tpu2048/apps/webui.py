@@ -11,7 +11,7 @@ INDEX_HTML = r"""<!DOCTYPE html>
 <html>
 <head>
 <meta charset="utf-8">
-<title>tpu2048 — TPU-native 2048 RL</title>
+<title>tpu2048 — 2048 RL on JAX</title>
 <style>
  body { font-family: system-ui, sans-serif; margin: 0; background: #19191f;
         color: #e8e8e8; }
@@ -336,7 +336,7 @@ async function renderWatch() {
    <label>since_empty</label><input id="w-se" type="number" value="6">
    <label>engine</label><select id="w-backend">
    <option value="auto">auto</option><option value="native">native C++</option>
-   <option value="device">TPU device search</option>
+   <option value="device">device (XLA) search</option>
    <option value="python">reference-parity python</option></select>
    <div class="row"><button id="w-start">LAUNCH!</button>
    <span id="w-status"></span></div>`;

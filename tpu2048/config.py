@@ -43,12 +43,11 @@ class AgentConfig:
     # "sum": raw scatter-add, exactly the reference numerics at
     # num_envs=1 (used by the sequential-equivalence tests).
     # (A row-local "rowmean" variant — normalizing only within-board
-    # collisions to drop the dense hit-count scatter/gather pair —
-    # was measured 16.6 -> 12.0 ms at n=6 / 20.1 -> 15.6 ms at n=7
-    # on the sparse chain (scripts/r5_fold_n{6,7}.txt) and REJECTED:
-    # cross-env collisions are systematic, not rare — every fresh run
-    # starts all envs synchronized, and the all-empty cross/block
-    # pattern is shared by many boards on every step — and without
+    # collisions to drop the dense hit-count scatter/gather pair — was
+    # REJECTED: cross-env collisions are systematic, not rare — every
+    # fresh run starts all envs synchronized, and the all-empty
+    # cross/block pattern is shared by many boards on every step — and
+    # without
     # their normalization the summed updates blow the early-game
     # entries up by orders of magnitude within a few steps.)
     update_mode: str = "mean"
@@ -57,7 +56,7 @@ class AgentConfig:
     #   fold the accumulated delta through the 7 non-identity table
     #   transforms once per jitted segment (bandwidth-cheap transposes;
     #   mathematically the same total update, arriving with at most
-    #   steps_per_call delay) — the TPU-fast default.
+    #   steps_per_call delay).
     # "scatter": per-step 8-image scatter, the reference's exact
     #   per-move semantics (used by sequential-equivalence tests);
     #   highest sample efficiency per QUALITY.md — the default.
@@ -69,8 +68,9 @@ class AgentConfig:
     #   and updates of the big 16^5/14^6 gather classes become a single
     #   sparse gather/scatter with the symmetry carried by the index
     #   normalization itself — per-move 8-image semantics at O(batch)
-    #   cost, no dense table passes.  The small MXU classes keep their
-    #   matmul path with a class-local fold.  The default (fastest;
+    #   cost, no dense table passes.  The small 16^2..16^4 classes
+    #   keep dense per-class blocks with a class-local fold.  The
+    #   default (fastest;
     #   same per-entry numerics as "fold"/"index" under "mean", exact
     #   orbit-stabilizer totals under "sum").
     # "fold": scatter IDENTITY features into a dense per-step delta and
@@ -86,18 +86,15 @@ class AgentConfig:
     # identity-index consumer (trial, native engine, watch bodies) —
     # store/checkpoint.load_agent_dense does this automatically.
     sym_impl: str = "canonical"
-    # How weight-table lookups/updates hit the hardware (identical
-    # numerics up to ~2^-18 rounding, see tpu2048/ops/dispatch.py):
-    # "auto": fused Pallas kernels on TPU, gather elsewhere;
-    # "gather": XLA gather/scatter; "onehot": two-level one-hot MXU
-    # matmuls in plain XLA; "pallas": fused Pallas kernels with
-    # VMEM-resident tables (TPU fast path, ~2x train throughput).
+    # How weight-table lookups/updates are expressed to XLA (same
+    # numerics, see tpu2048/ops/dispatch.py):
+    # "auto" (= "gather"): XLA gather/scatter; "onehot": two-level
+    # one-hot matmuls in plain XLA.
     table_ops: str = "auto"
     # Board representation in the train step (identical rollouts):
     # "cells": (N,4,4) int8 boards (reference-shaped, portable);
     # "codes": (N,4) int32 packed row codes — no rot90 relayouts,
-    # half the LUT gather traffic, ~2x train throughput on TPU
-    # (engine/fast.py).
+    # half the LUT gather traffic (engine/fast.py).
     engine_mode: str = "codes"
     # Weight-update rule:
     # "sgd": alpha-scheduled TD(0), the reference's rule
@@ -107,21 +104,6 @@ class AgentConfig:
     #   2016, arXiv:1604.05085).  Self-annealing: use alpha=1.0 and no
     #   decay schedule (the schedule is skipped in this mode).
     optimizer: str = "tc"
-    # Precision of the ACTOR's value pass over the 4 candidate
-    # afterstates (codes-engine train path):
-    # "bf16x2": two-pass split kernel, ~2^-18 relative — numerically
-    #   exact-grade selection AND bootstrap in one pass (the
-    #   conservative mode).
-    # "bf16": single-pass bf16 MXU classes for SELECTION (~2^-8 — the
-    #   greedy argmax only flips on near-ties, where both moves are
-    #   near-equally good), with the TD bootstrap value re-derived at
-    #   full precision for the chosen afterstate from the indices
-    #   already in hand — TD math stays exact while the 4N-row
-    #   selection pass runs at twice the MXU rate.  The default
-    #   (quality A/B'd against "bf16x2" at identical seeds, QUALITY.md
-    #   round 5).  The gather classes are plain f32 gathers (exact) in
-    #   either mode.
-    actor_precision: str = "bf16"
 
 
 @dataclass(frozen=True)

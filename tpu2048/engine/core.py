@@ -1,6 +1,6 @@
 """Vectorized lockstep 2048 environment.
 
-TPU-native counterpart of the reference's stateful single-board ``Game``
+Accelerator counterpart of the reference's stateful single-board ``Game``
 class (``/root/reference/game2048/game_logic.py:48-148``): boards are a
 ``(N, 4, 4) int8`` batch of tile exponents, every operation is a pure
 function over the whole batch, and all control flow is compiler-friendly

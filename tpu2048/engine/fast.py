@@ -1,7 +1,7 @@
 """Packed row-code engine: boards as (N, 4) int32 row codes.
 
 The cells engine (``core.py``) mirrors the board layout of the
-reference; this variant is the bandwidth-lean TPU representation: each
+reference; this variant is the bandwidth-lean device representation: each
 board is 4 packed 16-bit row codes, so
 
   * left/right moves are single LUT gathers on the codes themselves —
@@ -9,7 +9,7 @@ board is 4 packed 16-bit row codes, so
     tables are pre-composed reversals (rev . left . rev), so neither
     direction flips anything at runtime;
   * up/down transpose the 4 codes with pure integer nibble arithmetic
-    (VPU shifts/masks) and use the same left/right tables, with the
+    (shifts/masks) and use the same left/right tables, with the
     result kept in TRANSPOSED orientation: the n-tuple feature matmul
     for those directions simply uses a column-permuted matrix, which
     yields bit-identical CANONICAL feature indices — only the one
@@ -66,8 +66,7 @@ def build_code_tables() -> CodeTables:
     # row-fused layout: one 16-byte slice per row code resolves BOTH
     # directions and both scores — the whole 4-direction expansion of a
     # board costs 8 sliced gathers (4 rows x 2 orientations) instead of
-    # 16-32 scalar gathers; gathers are latency-bound on TPU, so fewer
-    # wider fetches win
+    # 16-32 scalar gathers (fewer, wider fetches)
     quad = np.stack([left_nc, right_nc, left_sc, right_sc], axis=1)
     return CodeTables(left_nc, left_sc, right_nc, right_sc, dir_sc, quad)
 

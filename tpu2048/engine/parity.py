@@ -6,8 +6,8 @@ Twister RNG call order (``random.randrange(10)`` for the tile value,
 then ``random.choice`` over empty cells enumerated in row-major
 ``np.where`` order; see ``/root/reference/game2048/game_logic.py:96-121``),
 same move semantics, same scoring, same recorded ``moves``/``tiles``
-logs.  This is the trajectory oracle for the vectorized TPU engine and
-deliberately stays out of the TPU fast path.
+logs.  This is the trajectory oracle for the vectorized device engine
+and deliberately stays out of the device fast path.
 
 The move itself is resolved through the same row LUT as the vectorized
 engine (``lut.py``), which the LUT unit tests pin to the rules.

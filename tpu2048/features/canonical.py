@@ -17,13 +17,13 @@ reproduces the reference's "sum" numerics exactly, and scattering
 ``dw`` reproduces the collision-mean numerics (all 8 images of one
 board carry the same ``dw``, so their per-entry mean is ``dw``).
 
-Why this matters on TPU: the dense table-transform fold
+Why this matters: the dense table-transform fold
 (``features/symmetry.py``) costs full passes over the weight table per
-step — ~250 ms at n=6 (0.38 GB) — while canonical indices keep the
+step (0.38 GB at n=6) — while canonical indices keep the
 per-step cost proportional to the BATCH: one extra index matmul and a
 min-reduction, then a single sparse gather/scatter.  This is what the
-small 16^2..16^4 tables do NOT need (their MXU matmul path plus a
-4.5 MB class fold is faster), so the learner canonicalizes only the
+small 16^2..16^4 tables do NOT need (dense per-class blocks plus a
+4.5 MB class fold suffice), so the learner canonicalizes only the
 large gather-path classes (16^5, 14^6).
 
 The orbit of an entry is computed from the 8 symmetry images' feature
@@ -84,7 +84,7 @@ def _orbit_pack(n: int) -> Tuple[np.ndarray, np.ndarray]:
     is the (global) index of the T_s-image of identity entry
     ``(gf[k], .)``.  One (B, 32) @ (32, 8K) matmul replaces the
     permuted (B, 8, 16) gather + batched (8-minor) einsum of the naive
-    formulation — no per-image board copies, and a single MXU-friendly
+    formulation — no per-image board copies, and a single
     contraction.
 
     Derivation: image s reads cell ``c`` of the permuted board, i.e.
@@ -176,8 +176,8 @@ def canonical_mask(ts: TupleSet) -> np.ndarray:
 @lru_cache(maxsize=None)
 def _gather_region(n: int) -> np.ndarray:
     """(total,) bool: True on entries of the gather-path classes (the
-    only classes the canonical representation transforms — the MXU
-    matmul classes stay dense/identity in either form)."""
+    only classes the canonical representation transforms — the small
+    16^2..16^4 classes stay dense/identity in either form)."""
     ts = get_tuple_set(n)
     gf = _gather_feat_ids(n)
     region = np.zeros(ts.total, bool)

@@ -2,11 +2,11 @@
 
 Same tuple geometries and bit-packings as the reference feature
 functions ``f_2``..``f_6`` (``/root/reference/game2048/r_learning.py:17-69``),
-but re-designed for TPU: the index of every feature is an integer linear
-function of the 16 cell exponents, so the whole index vector for a batch
-of boards is ONE small matmul (MXU-friendly, exact in float32 since all
-values are < 2^24), and the mixed-size per-tuple tables live at offsets
-in ONE flat weight vector in HBM.
+but re-designed for an accelerator: the index of every feature is an
+integer linear function of the 16 cell exponents, so the whole index
+vector for a batch of boards is ONE small matmul (exact in float32 since
+all values are < 2^24), and the mixed-size per-tuple tables live at
+offsets in ONE flat weight vector in device memory.
 
 The D4 symmetry group (reference ``update``, ``r_learning.py:207-214``)
 is realized as 8 precomputed 16-cell permutations, so computing the
@@ -205,12 +205,11 @@ def feature_indices(ts: TupleSet, flat_boards: jax.Array) -> jax.Array:
     """(..., 16) exponent vectors -> (..., num_feat) int32 flat-table indices.
 
     One float32 matmul; exact because indices < 2^24 — but ONLY at full
-    float32 precision: TPU default matmul precision rounds operands
-    toward bfloat16, and the base-14 coefficients of the 6-tuples
-    (14^3 = 2744, 14^5 = 537824) need more than bf16's 8 mantissa bits.
-    ``Precision.HIGHEST`` forces the exact f32 path on TPU (the
-    powers-of-16 coefficients of n<=5 happen to be bf16-exact, but the
-    pin keeps every geometry correct by construction).
+    float32 precision: a reduced default matmul precision (TF32 on an
+    NVIDIA GPU keeps 10 mantissa bits, bf16 keeps 7) rounds operands and
+    products, and the base-14 coefficients of the 6-tuples (14^3 = 2744,
+    14^5 = 537824) and the sums up to 16^6 - 1 at n=7 need all 24 bits.
+    ``Precision.HIGHEST`` forces the exact f32 path on every backend.
     """
     x = flat_boards.astype(jnp.float32)
     xc = jnp.minimum(x, 13.0)

@@ -95,9 +95,8 @@ def _apply_transform(ts: TupleSet, delta: jax.Array, maps) -> jax.Array:
     """One D4 table transform T_s of the full flat table.
 
     Digit permutations run through the streaming-pass planner
-    (ops/digit_perm.py) — naive rank-5/6 transposes with 14/16-wide
-    dims are ~30x off HBM bandwidth on TPU and would dominate the
-    per-step fold.  Tables of one size class that share a digit perm
+    (ops/digit_perm.py), which replaces naive rank-5/6 transposes with
+    14/16-wide dims by a few wide 2D passes.  Tables of one size class that share a digit perm
     are stacked and transformed in ONE batched op chain (fewer, wider
     passes).
     """
@@ -185,7 +184,7 @@ def symmetrize_class_sum(
     """``symmetrize_sum`` restricted to one size class's (..., g, size)
     block — same 3-doubling-pass factorization, touching only the
     class's bytes.  Used by the canonical-index learner, where only
-    the small MXU classes still fold densely (the big classes carry
+    the small 16^2..16^4 classes still fold densely (the big classes carry
     their symmetry in the indices — see features/canonical.py)."""
     transforms = build_sym_transforms(ts.n)
     y = block + _apply_class_transform(ts, block, transforms[0], feat0, g)

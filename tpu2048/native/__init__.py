@@ -1,6 +1,6 @@
 """Native host engine: C++ row-LUT engine + n-tuple eval + expectimax.
 
-The device (JAX/Pallas) path owns bulk compute; this module owns the
+The device (JAX) path owns bulk compute; this module owns the
 latency-sensitive host loops: interactive play, live watch frames,
 replay verification, and deep single-board expectimax — where the
 reference spent ~1 s/move in recursive Python

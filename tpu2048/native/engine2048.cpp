@@ -1,6 +1,6 @@
 // Host-side native engine for tpu2048.
 //
-// The TPU (JAX/Pallas) path owns bulk compute; this C++ module owns
+// The device (JAX) path owns bulk compute; this C++ module owns
 // the latency-sensitive HOST loops around it: interactive play, live
 // watch, game replay, and deep expectimax for a single board — the
 // paths where the reference spent ~1 s/move in recursive Python

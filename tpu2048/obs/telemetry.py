@@ -4,7 +4,7 @@ Capability parity with the reference's psutil RSS sampling
 (``/root/reference/game2048/start.py:131-141``, surfaced in the UI via
 ``application.py:172-173,464``): the host process RSS is sampled into
 an appendable ``memory_usage.txt`` artifact on the heartbeat cadence —
-and, being a TPU framework, the device HBM picture is sampled next to
+and the device memory picture is sampled next to
 it (``device.memory_stats()`` where the backend exposes it).
 """
 
@@ -37,7 +37,7 @@ def process_rss_mb() -> float:
 
 def device_memory_stats() -> Dict[str, Any]:
     """HBM usage of the first local device, when the backend reports it
-    (TPU/GPU backends do; CPU returns {})."""
+    (the GPU backend does; CPU returns {})."""
     try:
         import jax
 

@@ -1,11 +1,11 @@
-"""TPU kernel layer: MXU one-hot table ops and Pallas fused kernels.
+"""Table-op layer: how the n-tuple weight-table lookups and updates
+are expressed to XLA.
 
-This package is the framework's "native layer" (SURVEY §2: the
-reference is 100% Python, so the TPU-kernel layer replaces the
-reference's CPU hot loops rather than porting native code): the
-n-tuple weight-table gathers and scatter-adds that dominate the TD(0)
-train step are re-expressed as two-level one-hot matmuls that run on
-the MXU instead of latency-bound HBM random access.
+The reference's CPU hot loops (table gathers and scatter-adds in the
+TD(0) step) become batched gathers/scatters (``dispatch``), with the
+two-level one-hot matmul form (``onehot``) kept as an alternative
+formulation of the same lookups, and the digit-permutation planner
+(``digit_perm``) for the D4 symmetry fold.
 """
 
 from .onehot import (

@@ -2,9 +2,8 @@
 
 The D4 symmetry fold (``features/symmetry.py``) needs arbitrary digit
 permutations of base-16 / base-14 tables: ``transpose(x.reshape((b,)*k),
-perm)``.  XLA:TPU lowers those rank-5/6 transposes with 14/16-wide
-trailing dims ~30x off HBM bandwidth (lane-granularity shuffles), which
-made a naive per-step fold SLOWER than the 8-image scatter it replaces.
+perm)``.  A rank-5/6 transpose with 14/16-wide trailing dims is a
+poor memory access pattern for a compiler to lower as one op.
 
 This module re-expresses any digit permutation as a short sequence of
 three bandwidth-friendly primitives on the FLAT array:
@@ -15,8 +14,7 @@ three bandwidth-friendly primitives on the FLAT array:
     b**j contiguous row blocks (a wide row gather), realizing an
     arbitrary permutation sigma of the leading j digits;
   * ``cols (m, sigma)`` — ``x.reshape(-1, b**m) @ P``: an exact
-    one-hot permutation matmul over the trailing m digits — the MXU
-    relayouts within lanes at matrix-unit rate, which the VPU cannot.
+    one-hot permutation matmul over the trailing m digits.
 
 Rotations by j and j' compose to rotations by (j + j') mod k, and
 leading/trailing-digit permutations conjugated through rotations
@@ -56,9 +54,8 @@ def _allowed_js(k: int, base: int, min_dim: int) -> List[int]:
 
 
 def _allowed_ms(k: int, base: int) -> List[int]:
-    """Trailing-digit groups small enough for a one-hot MXU matmul
-    (the permutation matrix must fit the 128x128 systolic tiles
-    comfortably: b**m <= 256)."""
+    """Trailing-digit groups small enough for a one-hot permutation
+    matmul (b**m <= 256)."""
     return [m for m in range(1, k) if base**m <= 256]
 
 
@@ -153,8 +150,8 @@ def apply_plan(x: jnp.ndarray, ops, base: int, size: int) -> jnp.ndarray:
             m = jnp.asarray(_row_perm(base, j, sigma))
             x = jnp.take(x.reshape(lead + (bj, size // bj)), m, axis=-2)
         else:  # cols: exact — P is 0/1, so each product term is an
-            # exact f32 copy of one element (HIGHEST avoids bf16
-            # operand rounding on TPU)
+            # exact f32 copy of one element (HIGHEST rules out TF32 /
+            # bf16 operand rounding)
             _, m_, sigma = op
             bm = base**m_
             p = jnp.asarray(_col_perm_matrix(base, m_, sigma))

@@ -1,23 +1,21 @@
-"""Table-op dispatch: gather vs one-hot-XLA vs fused-Pallas paths.
+"""Table-op dispatch: gather vs one-hot-XLA paths.
 
 Builds the evaluator / updater pair used by the TD learner
-(``tpu2048.agent.td``) for a given tuple set.  All three modes are
+(``tpu2048.agent.td``) for a given tuple set.  Both modes are
 numerically interchangeable (same values, same updates); they differ
-only in how the table lookups hit the hardware:
+only in how the table lookups are expressed to XLA:
 
-  "gather":  jnp indexing — XLA gather/scatter (portable baseline)
-  "onehot":  two-level one-hot matmuls in plain XLA (MXU, but one-hot
-             intermediates round-trip HBM)
-  "pallas":  fused Pallas kernels — one-hots live in VMEM only and
-             the stacked tables stay VMEM-resident (TPU fast path)
+  "gather":  jnp indexing — XLA gather/scatter (the default; "auto")
+  "onehot":  two-level one-hot matmuls in plain XLA (kept as the
+             matmul formulation of the same lookups, see ops/onehot.py)
 
-Tables too large for the matmul trick (16^5, 14^6) always take the
-gather path; "onehot"/"pallas" apply to the 16^2/16^3/16^4 classes.
+Tables too large for the matmul form (16^5, 14^6) always take the
+gather path; "onehot" applies to the 16^2/16^3/16^4 classes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -26,22 +24,17 @@ import numpy as np
 from ..features.ntuple import TupleSet, feature_indices
 from . import onehot as oh
 
-
-def _pick_tb(b: int) -> int:
-    tb = 1
-    while tb < 512 and b % (tb * 2) == 0:
-        tb *= 2
-    return tb
+MODES = ("auto", "gather", "onehot")
 
 
 def resolve_mode(mode: str) -> str:
-    """"auto" -> fused Pallas kernels on TPU, gather elsewhere.
-    "search" -> search-grade mixed evaluator on TPU, gather elsewhere."""
-    if mode == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "gather"
-    if mode == "search":
-        return "search" if jax.default_backend() == "tpu" else "gather"
-    return mode
+    """"auto" -> gather on every backend; an unknown or removed mode
+    raises ``ValueError`` naming the valid ones."""
+    if mode not in MODES:
+        raise ValueError(
+            f"unknown table op mode {mode!r}; valid modes: {MODES}"
+        )
+    return "gather" if mode == "auto" else mode
 
 
 def _gather_class_values(ts, classes, weights, flat_boards, idx2,
@@ -65,7 +58,7 @@ def make_evaluator(ts: TupleSet, mode: str, canonical: bool = False) -> Callable
 
     ``canonical=True`` reads the large gather-path classes at their
     canonical-orbit indices (the representation the canonical-index
-    learner trains); the MXU matmul classes always use identity
+    learner trains); the small 16^2..16^4 classes always use identity
     indices in either representation.
     """
     mode = resolve_mode(mode)
@@ -97,85 +90,31 @@ def make_evaluator(ts: TupleSet, mode: str, canonical: bool = False) -> Callable
         return eval_gather
 
     classes = oh.build_table_classes(ts)
-    if mode == "onehot":
 
-        def eval_onehot(weights, flat_boards):
-            shape = flat_boards.shape[:-1]
-            b = int(np.prod(shape)) if shape else 1
-            idx = feature_indices(ts, flat_boards).reshape(b, ts.num_feat)
-            total = jnp.zeros((b,), jnp.float32)
-            for c in classes.matmul:
-                tables = oh._class_tables(weights, c)
-                hi, lo = oh._hi_lo(ts, idx, c)
-                oh_hi = jax.nn.one_hot(hi, c.h, dtype=jnp.float32)
-                m = jnp.einsum(
-                    "bgh,ghl->bgl",
-                    oh_hi,
-                    tables,
-                    precision=jax.lax.Precision.HIGHEST,
-                )
-                v = jnp.take_along_axis(m, lo[..., None], axis=-1)[..., 0]
-                total = total + v.sum(axis=-1)
-            if len(classes.gather_feats):
-                total = total + _gather_class_values(
-                    ts, classes, weights, flat_boards, idx, canonical
-                )
-            return total.reshape(shape)
+    def eval_onehot(weights, flat_boards):
+        shape = flat_boards.shape[:-1]
+        b = int(np.prod(shape)) if shape else 1
+        idx = feature_indices(ts, flat_boards).reshape(b, ts.num_feat)
+        total = jnp.zeros((b,), jnp.float32)
+        for c in classes.matmul:
+            tables = oh._class_tables(weights, c)
+            hi, lo = oh._hi_lo(ts, idx, c)
+            oh_hi = jax.nn.one_hot(hi, c.h, dtype=jnp.float32)
+            m = jnp.einsum(
+                "bgh,ghl->bgl",
+                oh_hi,
+                tables,
+                precision=jax.lax.Precision.HIGHEST,
+            )
+            v = jnp.take_along_axis(m, lo[..., None], axis=-1)[..., 0]
+            total = total + v.sum(axis=-1)
+        if len(classes.gather_feats):
+            total = total + _gather_class_values(
+                ts, classes, weights, flat_boards, idx, canonical
+            )
+        return total.reshape(shape)
 
-        return eval_onehot
-
-    if mode == "search":
-        from . import pallas_kernels as pk
-
-        def eval_search(weights, flat_boards):
-            """Search-grade leaf evaluator: matmul classes via the
-            fused Pallas kernel in SINGLE-PASS bf16 (~2^-8 relative
-            error — the expectimax leaf value is a sampled heuristic,
-            so f32 exactness buys nothing), larger classes (16^5,
-            14^6) via gather.  At tree batches this runs the 16^4
-            class near MXU rate instead of the latency-bound gather's
-            ~93M lookups/s."""
-            shape = flat_boards.shape[:-1]
-            b = int(np.prod(shape)) if shape else 1
-            idx = feature_indices(ts, flat_boards).reshape(b, ts.num_feat)
-            tb = _pick_tb(b)
-            total = jnp.zeros((b,), jnp.float32)
-            for c in classes.matmul:
-                tables = oh._class_tables(weights, c)
-                hi, lo = oh._hi_lo(ts, idx, c)
-                total = total + pk.eval_class(
-                    tables, hi, lo, tb, precision="bf16"
-                )
-            if len(classes.gather_feats):
-                total = total + _gather_class_values(
-                    ts, classes, weights, flat_boards, idx, canonical
-                )
-            return total.reshape(shape)
-
-        return eval_search
-
-    if mode == "pallas":
-        from . import pallas_kernels as pk
-
-        def eval_pallas(weights, flat_boards):
-            shape = flat_boards.shape[:-1]
-            b = int(np.prod(shape)) if shape else 1
-            idx = feature_indices(ts, flat_boards).reshape(b, ts.num_feat)
-            tb = _pick_tb(b)
-            total = jnp.zeros((b,), jnp.float32)
-            for c in classes.matmul:
-                tables = oh._class_tables(weights, c)
-                hi, lo = oh._hi_lo(ts, idx, c)
-                total = total + pk.eval_class(tables, hi, lo, tb)
-            if len(classes.gather_feats):
-                total = total + _gather_class_values(
-                    ts, classes, weights, flat_boards, idx, canonical
-                )
-            return total.reshape(shape)
-
-        return eval_pallas
-
-    raise ValueError(f"unknown table op mode: {mode}")
+    return eval_onehot
 
 
 def make_delta_accumulator(ts: TupleSet, mode: str) -> Callable:
@@ -183,65 +122,23 @@ def make_delta_accumulator(ts: TupleSet, mode: str) -> Callable:
     -> (dsum, hits) full-table arrays: per-entry summed updates and
     hit counts for this batch.  Used by table-level optimizers
     (collision-mean SGD, temporal coherence)."""
-    mode = resolve_mode(mode)
-    if mode in ("gather", "onehot"):
+    resolve_mode(mode)
 
-        def acc_gather(weights, idx, dw, valid):
-            dwv = jnp.where(valid, dw, 0.0)
-            upd = jnp.broadcast_to(dwv[:, None], idx.shape)
-            contrib = jnp.broadcast_to(
-                valid[:, None], idx.shape
-            ).astype(jnp.float32)
-            zeros = jnp.zeros_like(weights)
-            dsum = zeros.at[idx].add(upd, mode="drop")
-            hits = zeros.at[idx].add(contrib, mode="drop")
-            return dsum, hits
+    def acc_gather(weights, idx, dw, valid):
+        dwv = jnp.where(valid, dw, 0.0)
+        upd = jnp.broadcast_to(dwv[:, None], idx.shape)
+        contrib = jnp.broadcast_to(
+            valid[:, None], idx.shape
+        ).astype(jnp.float32)
+        zeros = jnp.zeros_like(weights)
+        dsum = zeros.at[idx].add(upd, mode="drop")
+        hits = zeros.at[idx].add(contrib, mode="drop")
+        return dsum, hits
 
-        return acc_gather
-
-    if mode == "pallas":
-        from . import pallas_kernels as pk
-
-        classes = oh.build_table_classes(ts)
-        grads = {
-            (c.h, c.l): pk.grad_for(c.h, c.l) for c in classes.matmul
-        }
-
-        def acc_pallas(weights, idx, dw, valid):
-            b = idx.shape[0]
-            tb = _pick_tb(b)
-            dsum = jnp.zeros_like(weights)
-            hits = jnp.zeros_like(weights)
-            for c in classes.matmul:
-                hi, lo = oh._hi_lo(ts, idx, c)
-                d, h = grads[(c.h, c.l)](hi, lo, dw, valid, tb)
-                size = c.g * c.h * c.l
-                dsum = jax.lax.dynamic_update_slice(
-                    dsum, d.reshape(size), (c.start,)
-                )
-                hits = jax.lax.dynamic_update_slice(
-                    hits, h.reshape(size), (c.start,)
-                )
-            if len(classes.gather_feats):
-                gf = jnp.asarray(classes.gather_feats)
-                gidx = idx[:, gf]
-                dwv = jnp.where(valid, dw, 0.0)
-                upd = jnp.broadcast_to(dwv[:, None], gidx.shape)
-                contrib = jnp.broadcast_to(
-                    valid[:, None], gidx.shape
-                ).astype(jnp.float32)
-                dsum = dsum.at[gidx].add(upd, mode="drop")
-                hits = hits.at[gidx].add(contrib, mode="drop")
-            return dsum, hits
-
-        return acc_pallas
-
-    raise ValueError(f"unknown table op mode: {mode}")
+    return acc_gather
 
 
-def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
-                         precision: Optional[str] = None,
-                         split: bool = False):
+def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False):
     """Evaluator that also RETURNS the index tensors it computed, so
     the train step can select the chosen afterstate's features instead
     of recomputing them (one index matmul + one canonical orbit
@@ -250,30 +147,9 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
     Returns fn(weights, flat_boards (..., 16)) ->
         (values (...,), idx (..., F), cidx (..., K) | None,
          mult (..., K) | None)
-    or with ``split=True``
-        (mxu (...,), gth (...,), idx, cidx, mult)
-    where ``mxu`` is the matmul classes' contribution and ``gth`` the
-    gather classes' (always exact f32 — it is plain gathers).  The
-    split lets a bf16 actor re-derive an EXACT bootstrap value for the
-    chosen afterstate: only the mxu part carries the reduced
-    precision, so exact-V(chosen) = exact-mxu(chosen) + gth[chosen].
-
-    ``precision`` overrides the matmul-class kernel precision
-    ("bf16x2" ~2^-18, the default; "bf16" single-pass ~2^-8 — the
-    selection-grade mode AgentConfig.actor_precision="bf16" uses).
-    Matmul classes ride the fused Pallas kernel on TPU and plain
-    gathers elsewhere (numerically interchangeable, see module doc).
     """
-    mode = resolve_mode(mode)
+    resolve_mode(mode)
     classes = oh.build_table_classes(ts)
-    use_pallas = mode in ("pallas", "search")
-    # "search" = single-pass bf16 matmul classes (~2^-8 relative): the
-    # actor's greedy argmax only flips on near-ties, where both moves
-    # are near-equally good; opt-in speed mode (table_ops="search")
-    if precision is None:
-        precision = "bf16" if mode == "search" else "bf16x2"
-    if use_pallas:
-        from . import pallas_kernels as pk
     if canonical:
         from ..features.canonical import canonical_gather_indices
 
@@ -282,150 +158,63 @@ def make_train_evaluator(ts: TupleSet, mode: str, canonical: bool = False,
         b = int(np.prod(shape)) if shape else 1
         idx = feature_indices(ts, flat_boards)
         idx2 = idx.reshape(b, ts.num_feat)
-        mxu = jnp.zeros((b,), jnp.float32)
-        if use_pallas:
-            tb = _pick_tb(b)
-            for c in classes.matmul:
-                tables = oh._class_tables(weights, c)
-                hi, lo = oh._hi_lo(ts, idx2, c)
-                mxu = mxu + pk.eval_class(
-                    tables, hi, lo, tb, precision=precision
-                )
-        else:
+        total = jnp.zeros((b,), jnp.float32)
+        with jax.named_scope("class_eval"):
             for c in classes.matmul:
                 cols = idx2[:, c.feat0: c.feat0 + c.g]
-                mxu = mxu + weights[cols].sum(axis=-1)
+                total = total + weights[cols].sum(axis=-1)
         cidx = mult = None
-        gth = jnp.zeros((b,), jnp.float32)
         if len(classes.gather_feats):
-            if canonical:
-                cidx, mult = canonical_gather_indices(ts, flat_boards)
-                gth = weights[cidx.reshape(b, -1)].sum(axis=-1)
-            else:
-                gf = jnp.asarray(classes.gather_feats)
-                gth = weights[idx2[:, gf]].sum(axis=-1)
-        if split:
-            return (mxu.reshape(shape), gth.reshape(shape),
-                    idx, cidx, mult)
-        return (mxu + gth).reshape(shape), idx, cidx, mult
+            with jax.named_scope("gather_eval"):
+                if canonical:
+                    cidx, mult = canonical_gather_indices(ts, flat_boards)
+                    total = total + weights[cidx.reshape(b, -1)].sum(
+                        axis=-1
+                    )
+                else:
+                    gf = jnp.asarray(classes.gather_feats)
+                    total = total + weights[idx2[:, gf]].sum(axis=-1)
+        return total.reshape(shape), idx, cidx, mult
 
     return ev
 
 
-def make_mxu_eval_idx(ts: TupleSet, mode: str):
-    """Exact-grade (bf16x2 / f32) matmul-class evaluation from
-    PRECOMPUTED feature indices: fn(weights, idx2 (B, F)) -> (B,).
-
-    Companion to ``make_train_evaluator(split=True)`` for the bf16
-    actor: after selection, the chosen afterstate's matmul-class value
-    is re-derived at full precision from the indices already in hand —
-    an N-row kernel pass instead of the 4N selection pass.
-    """
-    mode = resolve_mode(mode)
-    classes = oh.build_table_classes(ts)
-    use_pallas = mode in ("pallas", "search")
-    if use_pallas:
-        from . import pallas_kernels as pk
-
-    def ev(weights, idx2):
-        b = idx2.shape[0]
-        mxu = jnp.zeros((b,), jnp.float32)
-        if use_pallas:
-            tb = _pick_tb(b)
-            for c in classes.matmul:
-                tables = oh._class_tables(weights, c)
-                hi, lo = oh._hi_lo(ts, idx2, c)
-                mxu = mxu + pk.eval_class(
-                    tables, hi, lo, tb, precision="bf16x2"
-                )
-        else:
-            for c in classes.matmul:
-                cols = idx2[:, c.feat0: c.feat0 + c.g]
-                mxu = mxu + weights[cols].sum(axis=-1)
-        return mxu
-
-    return ev
-
-
-def _hi_lo_repacked(ts: TupleSet, idx: jax.Array, c, packs) -> Tuple[jax.Array, jax.Array]:
-    """(hi, lo) levels of a 16^4 class in a per-tuple REPACKED digit
-    order (``ops/fold_kernel.py``): hi = digits (p0, p1) and lo =
-    digits (p2, p3) of the local index.  Pure shift/mask arithmetic —
-    the gradient blocks then come out directly in the fused fold
-    kernel's coordinates, making the repacking free on the hot path."""
-    off = jnp.asarray(ts.offsets[c.feat0 : c.feat0 + c.g])
-    local = idx[..., c.feat0 : c.feat0 + c.g] - off  # (B, g)
-    sh = np.asarray(4 * (3 - packs))  # (g, 4) per-digit shifts
-    d = [
-        (local >> jnp.asarray(sh[:, j])) & 15 for j in range(4)
-    ]
-    return (d[0] << 4) | d[1], (d[2] << 4) | d[3]
-
-
-def make_class_grads(ts: TupleSet, mode: str, repack=None):
-    """Per-class (dsum, hits) gradient blocks for the MXU matmul
+def make_class_grads(ts: TupleSet, mode: str):
+    """Per-class (dsum, hits) gradient blocks for the 16^2..16^4
     classes ONLY — never materializes full-table arrays (the canonical
     -index learner handles the big gather classes sparsely instead).
 
     Returns ``(classes, fn)`` with
     ``fn(idx (B, F), dw (B,), valid (B,)) ->
         [(dsum (g, h, l), hits (g, h, l)), ...]`` aligned with
-    ``classes.matmul``.  Pallas on TPU, one-hot einsums elsewhere;
-    identical numerics up to the bf16x2 split (~2^-18).
-
-    ``repack`` (pallas mode only): {feat0: (g, 4) digit perms} — emit
-    those classes' blocks in the fused fold kernel's repacked digit
-    order (see ``_hi_lo_repacked``).
+    ``classes.matmul``.  A scatter-add into each class block: the
+    block's dsum is an f32 sum of colliding updates whose order is not
+    fixed on a GPU (atomics), so it varies in the last bits from run to
+    run; hits are integer counts and exact.
     """
-    mode = resolve_mode(mode)
+    resolve_mode(mode)
     classes = oh.build_table_classes(ts)
-    if mode in ("pallas", "search"):
-        from . import pallas_kernels as pk
 
-        grads = {
-            (c.h, c.l): pk.grad_for(c.h, c.l) for c in classes.matmul
-        }
-        repack = repack or {}
-
-        def fn_pallas(idx, dw, valid):
-            tb = _pick_tb(idx.shape[0])
-            out = []
-            for c in classes.matmul:
-                if c.feat0 in repack:
-                    hi, lo = _hi_lo_repacked(
-                        ts, idx, c, repack[c.feat0]
-                    )
-                else:
-                    hi, lo = oh._hi_lo(ts, idx, c)
-                out.append(grads[(c.h, c.l)](hi, lo, dw, valid, tb))
-            return out
-
-        return classes, fn_pallas
-
-    def fn_xla(idx, dw, valid):
+    def fn_scatter(idx, dw, valid):
         dwv = jnp.where(valid, dw, 0.0).astype(jnp.float32)
         cv = valid.astype(jnp.float32)
         out = []
         for c in classes.matmul:
-            hi, lo = oh._hi_lo(ts, idx, c)
-            oh_hi = jax.nn.one_hot(hi, c.h, dtype=jnp.float32)
-            oh_lo = jax.nn.one_hot(lo, c.l, dtype=jnp.float32)
-            dsum = jnp.einsum(
-                "bgh,bgl->ghl",
-                oh_hi,
-                oh_lo * dwv[:, None, None],
-                precision=jax.lax.Precision.HIGHEST,
+            # the class's g tables are contiguous from c.start, so the
+            # flat index minus c.start addresses the (g, h, l) block
+            loc = idx[:, c.feat0: c.feat0 + c.g] - c.start
+            zeros = jnp.zeros((c.g * c.h * c.l,), jnp.float32)
+            dsum = zeros.at[loc].add(
+                jnp.broadcast_to(dwv[:, None], loc.shape), mode="drop"
             )
-            hits = jnp.einsum(
-                "bgh,bgl->ghl",
-                oh_hi,
-                oh_lo * cv[:, None, None],
-                precision=jax.lax.Precision.HIGHEST,
+            hits = zeros.at[loc].add(
+                jnp.broadcast_to(cv[:, None], loc.shape), mode="drop"
             )
-            out.append((dsum, hits))
+            out.append((dsum.reshape(c.g, c.h, c.l),
+                        hits.reshape(c.g, c.h, c.l)))
         return out
 
-    return classes, fn_xla
+    return classes, fn_scatter
 
 
 def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
@@ -455,50 +244,10 @@ def make_updater(ts: TupleSet, mode: str, mean: bool) -> Callable:
         return upd_gather
 
     classes = oh.build_table_classes(ts)
-    if mode == "onehot":
 
-        def upd_onehot(weights, idx, dw, valid):
-            return oh.onehot_update(
-                ts, classes, weights, idx, dw, valid, mean=mean
-            )
+    def upd_onehot(weights, idx, dw, valid):
+        return oh.onehot_update(
+            ts, classes, weights, idx, dw, valid, mean=mean
+        )
 
-        return upd_onehot
-
-    if mode == "pallas":
-        from . import pallas_kernels as pk
-
-        grads = {
-            (c.h, c.l): pk.grad_for(c.h, c.l) for c in classes.matmul
-        }
-
-        def upd_pallas(weights, idx, dw, valid):
-            b = idx.shape[0]
-            tb = _pick_tb(b)
-            out = weights
-            for c in classes.matmul:
-                hi, lo = oh._hi_lo(ts, idx, c)
-                dsum, hits = grads[(c.h, c.l)](hi, lo, dw, valid, tb)
-                if mean:
-                    dsum = dsum / jnp.maximum(hits, 1.0)
-                flat = dsum.reshape(c.g * c.h * c.l)
-                cur = jax.lax.dynamic_slice(out, (c.start,), (flat.shape[0],))
-                out = jax.lax.dynamic_update_slice(out, cur + flat, (c.start,))
-            if len(classes.gather_feats):
-                gf = jnp.asarray(classes.gather_feats)
-                gidx = idx[:, gf]
-                dwv = jnp.where(valid, dw, 0.0)
-                upd = jnp.broadcast_to(dwv[:, None], gidx.shape)
-                if mean:
-                    contrib = jnp.broadcast_to(
-                        valid[:, None], gidx.shape
-                    ).astype(jnp.float32)
-                    hits = jnp.zeros_like(out).at[gidx].add(
-                        contrib, mode="drop"
-                    )
-                    upd = upd / jnp.maximum(hits[gidx], 1.0)
-                out = out.at[gidx].add(upd, mode="drop")
-            return out
-
-        return upd_pallas
-
-    raise ValueError(f"unknown table op mode: {mode}")
+    return upd_onehot

@@ -1,15 +1,13 @@
 """Two-level one-hot matmul table ops (XLA implementation).
 
 The n-tuple model's evaluation is a sum of table lookups
-(reference ``r_learning.py:202-203``); on TPU a random HBM gather
-costs ~10 ns while the MXU delivers tens of TFLOP/s.  For a table of
-size H*L the lookup ``T[i]`` equals the bilinear form
+(reference ``r_learning.py:202-203``).  For a table of size H*L the
+lookup ``T[i]`` equals the bilinear form
 
     T[i] = onehot(i // L, H) @ T.reshape(H, L) @ onehot(i % L, L)
 
 i.e. one (B,H)x(H,L) matmul plus an L-wide masked row-sum — O(H*L)
-MXU FLOPs per lookup, which for 16^4 tables (H=L=256, 131 kFLOP) is
-*cheaper in time* than one latency-bound gather.  Tables of the same
+FLOPs per lookup (131 kFLOP for a 16^4 table).  Tables of the same
 size class are stacked into (G, H, L) and evaluated as one batched
 matmul; classes too large to be worth it (16^5, 14^6) stay on the
 gather path.
@@ -23,9 +21,9 @@ which also yields the collision-aware "mean" update (AgentConfig.
 update_mode) as a cheap table-wide elementwise divide instead of the
 gather-scatter-gather chain.
 
-``tpu2048.ops.pallas_kernels`` provides the fused Pallas versions
-(one-hots built in VMEM, tables VMEM-resident); this module is the
-portable XLA reference with identical numerics.
+``ops/dispatch.py`` selects this formulation with ``table_ops=
+"onehot"``; the default is the plain gather/scatter with identical
+numerics.
 """
 
 from __future__ import annotations
@@ -58,7 +56,7 @@ class TableClass(NamedTuple):
 
 
 class TableClasses(NamedTuple):
-    matmul: Tuple[TableClass, ...]  # classes on the MXU path
+    matmul: Tuple[TableClass, ...]  # 16^2..16^4 classes (matmul form)
     gather_feats: np.ndarray  # (K,) int32 feature columns on the gather path
 
 
@@ -107,7 +105,7 @@ def onehot_eval(
     weights: jax.Array,
     idx: jax.Array,
 ) -> jax.Array:
-    """sum_f weights[idx[..., f]] with matmul classes on the MXU.
+    """sum_f weights[idx[..., f]] with the matmul classes as matmuls.
 
     Exact: one-hots are 0/1 (exact in any float dtype) and the matmul
     runs at HIGHEST precision, so each product term is an exact f32

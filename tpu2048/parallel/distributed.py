@@ -3,18 +3,18 @@
 The reference has NO communication backend at all — its only
 inter-process channel is S3 document polling (SURVEY §2.2 / §5:
 ``start.py:84-141``, ``application.py:164-182``).  Here the data
-plane is JAX/XLA collectives over ICI within a slice and DCN across
-slices; this module owns the control-plane bring-up:
+plane is JAX/XLA collectives (NCCL over NVLink within a host, the
+network across hosts); this module owns the control-plane bring-up:
 
   * ``initialize()`` wraps ``jax.distributed.initialize`` with
-    TPU-pod / GCE-metadata auto-detection and env-var overrides
-    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) — call it once
-    per host before any device op; on a single host it is a no-op.
+    explicit arguments or the env vars COORDINATOR_ADDRESS,
+    NUM_PROCESSES and PROCESS_ID — call it once per process before
+    any device op; with no coordinator it is a no-op.
   * ``global_mesh()`` builds the (data, model) mesh over the global
-    device set, so the same ``make_sharded_train_segment`` spans a
-    pod: each host feeds its local shard of the env batch, the
+    device set, so the same ``make_sharded_train_segment`` spans
+    every process: each feeds its local shard of the env batch, the
     weight table is replicated (or model-sharded) and TD updates
-    all-reduce over ICI/DCN automatically through GSPMD.
+    all-reduce automatically through GSPMD.
 
 Host-side coordination above this (job registry, leases, heartbeats)
 stays in ``tpu2048.obs.jobs`` — storage-backed like the reference's
@@ -39,12 +39,11 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Bring up jax.distributed for a multi-host run.
+    """Bring up jax.distributed for a multi-process run.
 
     Resolution order: explicit args > env vars (COORDINATOR_ADDRESS /
-    NUM_PROCESSES / PROCESS_ID) > TPU-pod auto-detection (args all
-    None lets jax.distributed use the TPU metadata service).  Returns
-    True if distributed mode was initialized, False for single-host.
+    NUM_PROCESSES / PROCESS_ID).  Returns True if distributed mode was
+    initialized, False when no coordinator is given (single process).
     Safe to call more than once.
     """
     global _initialized
@@ -53,27 +52,12 @@ def initialize(
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS"
     )
+    if coordinator_address is None:
+        return False
     if num_processes is None and "NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["NUM_PROCESSES"])
     if process_id is None and "PROCESS_ID" in os.environ:
         process_id = int(os.environ["PROCESS_ID"])
-
-    explicit = coordinator_address is not None
-    # Pod detection must not touch the backend: jax.default_backend()
-    # would initialize XLA and make jax.distributed.initialize below
-    # unconditionally fail.  A multi-host TPU pod advertises multiple
-    # worker hostnames in the env — but a CPU-forced debug run
-    # (JAX_PLATFORMS=cpu and the like) on a pod host must not auto-init
-    # with no coordinator args, so any non-TPU platform pin disables
-    # auto-detection.
-    platforms = os.environ.get("JAX_PLATFORMS", "")
-    cpu_forced = platforms not in ("", "tpu") and "tpu" not in platforms
-    worker_hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    on_tpu_pod = (
-        len([h for h in worker_hosts.split(",") if h]) > 1 and not cpu_forced
-    )
-    if not explicit and not on_tpu_pod:
-        return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

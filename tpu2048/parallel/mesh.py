@@ -2,7 +2,8 @@
 
 The reference has NO distributed compute at all (SURVEY §2.2): one
 sequential game on one CPU core, with S3 polling as its only
-inter-process channel.  This module is the from-scratch TPU story:
+inter-process channel.  This module is the from-scratch multi-device
+design:
 
   * a ``jax.sharding.Mesh`` with a ``data`` axis (environments sharded
     across chips/hosts) and an optional ``model`` axis (weight-table
@@ -13,7 +14,9 @@ inter-process channel.  This module is the from-scratch TPU story:
   * GSPMD-compiled train steps: ``jax.jit`` over sharded inputs lets
     XLA insert the collectives — the batched scatter-add of TD updates
     into the replicated table becomes a local scatter + cross-replica
-    all-reduce riding ICI, and episode metrics reduce the same way.
+    all-reduce (NCCL; the cards of one host are joined all to all, so
+    the mesh follows the algorithm, not a topology), and episode
+    metrics reduce the same way.
 
 Multi-host bring-up is ``jax.distributed.initialize`` + the same mesh
 over ``jax.devices()``; tests exercise the logic on a virtual 8-device

@@ -185,7 +185,7 @@ class Trainer:
         """Append one ma-100 point PER 100-episode window crossed since
         the last drain (the reference appends per window,
         ``r_learning.py:315-318``), reading each window's own ring span
-        by absolute episode position.  A fast TPU segment can cross
+        by absolute episode position.  A fast device segment can cross
         dozens of boundaries at once; re-reading the final ring state
         for each would duplicate one value across all of them.  Windows
         the ring has already overwritten (segment completed more than

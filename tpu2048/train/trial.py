@@ -60,16 +60,6 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
     from ..engine import fast as engf
     from ..ops import dispatch as table_dispatch
 
-    if table_ops == "auto" and scfg.depth > 0:
-        # Search evaluates (4*width)^depth leaf boards per root move.
-        # The "search" mode runs the 16^2..16^4 matmul classes through
-        # the fused Pallas kernel in single-pass bf16 (one (TB,H)@(H,L)
-        # MXU issue per tuple, ~2^-8 relative error — plenty for a
-        # sampled-tree heuristic) and gathers only the large classes
-        # (16^5, 14^6); plain gather runs ~93M lookups/s on TPU, so
-        # moving the 17-of-21 16^4 share of n=5 off it is the single
-        # biggest search speedup.  Off-TPU this resolves to gather.
-        table_ops = "search"
     if policy == "value":
         eval_fn = table_dispatch.make_evaluator(ts, table_ops)
     elif policy not in ("random", "score"):
@@ -79,8 +69,8 @@ def _make_eval_segment(ts, scfg: SearchConfig, n: int, s_cap: int,
     # ``weights`` is threaded through as a jit ARGUMENT, never a
     # closure: a closed-over jax.Array lowers as an embedded HLO
     # constant, and the n=6 table (12*14^6 f32 entries, ~0.4 GB)
-    # inside the compile payload breaks remote-compile transports and
-    # bloats executable size for every geometry.
+    # would bloat the compile payload and executable for every
+    # geometry.
     def step(st: _EvalState, weights) -> _EvalState:
         key, k_est, k_spawn = jax.random.split(st.key, 3)
         aft, delta, legal, _t = engf.afterstates_full(st.codes)
